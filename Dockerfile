@@ -1,15 +1,16 @@
-# Container recipe for the TPU color-depth-search toolset.
+# Container recipe for the color-depth-search toolset.
 #
 # Counterpart of the reference's two-stage Dockerfile (Dockerfile:1-28:
 # jdk builder stage producing the jar-with-dependencies, runtime stage
 # carrying only the artifact). Here the builder stage wheels the
-# package; the runtime stage installs the wheel plus the TPU jax
-# runtime and exposes the same CLI surface.
+# package; the runtime stage installs the wheel and exposes the same
+# CLI surface.
 #
 # Build:  docker build -t colormipsearch-tpu .
-# Run:    docker run colormipsearch-tpu colorDepthSearch --help
-# On TPU VMs pass the libtpu runtime through (e.g. a jax[tpu] base or
-# --device bind mounts per the TPU VM docs).
+# Run:    docker run --gpus all colormipsearch-tpu colorDepthSearch --help
+# The active-tile kernel needs JAX's CUDA plugin (pip install
+# "jax[cuda12]") and a visible NVIDIA GPU; without one the CLI runs the
+# dense engine on the CPU.
 
 FROM python:3.11-slim AS builder
 WORKDIR /src
@@ -26,6 +27,6 @@ RUN apt-get update -y \
  && rm -rf /var/lib/apt/lists/*
 WORKDIR /app
 COPY --from=builder /dist/*.whl /tmp/
-RUN pip install --no-cache-dir /tmp/*.whl && rm /tmp/*.whl
+RUN pip install --no-cache-dir /tmp/*.whl "jax[cuda12]" && rm /tmp/*.whl
 ENTRYPOINT ["colormipsearch-tpu"]
 CMD ["--help"]

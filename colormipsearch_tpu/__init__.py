@@ -1,4 +1,4 @@
-"""colormipsearch_tpu — a TPU-native color depth MIP search (CDS) framework.
+"""colormipsearch_tpu — an accelerator-native color depth MIP search (CDS) framework.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 JaneliaSciComp/colormipsearch (the NeuronBridge CDS precompute toolset):

@@ -6,7 +6,7 @@ decimal constants in Java doubles (AbstractColorDepthSearchAlgorithm
 
     u / v <= C9 / 10^9      (u <= 2^17, v <= 2^16, C9 < 2^35)
 
-TPUs prefer 32-bit lanes, so instead of int64/float64 we evaluate the
+Accelerators prefer 32-bit lanes, so instead of int64/float64 we evaluate the
 cross-multiplied comparison u * 10^9 <= C9 * v with a staged quotient
 decomposition that never leaves int32:
 

@@ -28,13 +28,16 @@ def create_pixel_match_engine(query: Image,
                               engine: str = "auto",
                               neg_query: Optional[Image] = None,
                               neg_query_threshold: int = 0,
-                              mirror_neg_query: bool = False):
+                              mirror_neg_query: bool = False,
+                              interpret: bool = False):
     """Build a pixel-match engine with the reference's defaults
     (cmd/AbstractColorDepthMatchArgs.java:18-43).
 
-    engine: "auto" (pallas on TPU, dense elsewhere), "dense", "pallas".
-    A negative query composes two engines with the reference's score
-    subtraction (PixelMatchColorDepthSearchAlgorithm.java:195-217).
+    engine: "auto" (the active-tile kernel on a CUDA GPU, dense on a
+    CPU), "dense", "pallas"; interpret runs the kernel in Pallas
+    interpret mode (CPU tests only). A negative query composes two
+    engines with the reference's score subtraction
+    (PixelMatchColorDepthSearchAlgorithm.java:195-217).
     """
     if xy_shift % 2:
         raise ValueError("XY shift parameter must be an even number.")
@@ -42,15 +45,15 @@ def create_pixel_match_engine(query: Image,
         excluded = label_regions_mask(query.height, query.width)
     if engine == "auto":
         import jax
-        engine = ("pallas" if jax.devices()[0].platform.startswith("tpu")
-                  else "dense")
+        engine = "pallas" if jax.devices()[0].platform == "gpu" else "dense"
 
     def build(img, thr, mirror):
         if engine == "pallas":
-            from .pixel_pallas import ActiveTilePixelEngine
+            from .active_tile import ActiveTilePixelEngine, check_platform
+            check_platform(interpret)
             return ActiveTilePixelEngine(img, thr, mirror, data_threshold,
                                          pix_color_fluctuation, xy_shift,
-                                         excluded)
+                                         excluded, interpret=interpret)
         from .pixel_kernel import PixelMatchEngine
         return PixelMatchEngine(img, thr, mirror, data_threshold,
                                 pix_color_fluctuation, xy_shift, excluded)
@@ -74,13 +77,12 @@ class NegQueryPixelMatchEngine:
 
     @property
     def query_size(self) -> int:
-        return getattr(self.pos, "planes", getattr(self.pos, "tiles", None)).query_size
+        return self.pos.planes.query_size
 
     def score_batch(self, targets_u8: np.ndarray):
         pixels, ratios, mirrored = self.pos.score_batch(targets_u8)
         neg_pixels, _, _ = self.neg.score_batch(targets_u8)
-        neg_size = getattr(self.neg, "planes",
-                           getattr(self.neg, "tiles", None)).query_size
+        neg_size = self.neg.planes.query_size
         if neg_size <= 0:
             return pixels, ratios, mirrored
         qsize = self.query_size

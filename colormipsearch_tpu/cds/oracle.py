@@ -5,7 +5,7 @@ re-statement of the reference's scalar Java inner loops, used to
 
 1. reproduce the reference's golden scores exactly
    (PixelMatchColorDepthSearchAlgorithmTest: 87 / 439 / 414 / 515 / 483 / 426),
-2. act as the oracle that every TPU kernel is validated against.
+2. act as the oracle that every device kernel is validated against.
 
 Reference behavior reproduced here (citations into /root/reference):
 - hue-sector pixel gap: cds/AbstractColorDepthSearchAlgorithm.java:157-390

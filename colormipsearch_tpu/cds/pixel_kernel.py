@@ -1,6 +1,6 @@
-"""TPU pixel-match CDS kernel: dense, batched, exact-integer.
+"""Dense pixel-match CDS kernel: batched, exact-integer XLA.
 
-TPU-first re-design of the reference's sparse position-list scorer
+Accelerator re-design of the reference's sparse position-list scorer
 (cds/PixelMatchColorDepthSearchAlgorithm.java:20-265). Design:
 
 - Dense packed planes, not position lists. Each image pixel becomes one
@@ -8,7 +8,7 @@ TPU-first re-design of the reference's sparse position-list scorer
   selection flag, adjacency precondition flags). The hue gap test
   (AbstractColorDepthSearchAlgorithm.java:157-390) is evaluated
   branchlessly with exact int32 rational comparisons (exact_ratio.py) —
-  no float drift, no data-dependent control flow, VPU-friendly, one
+  no float drift, no data-dependent control flow, vector-friendly, one
   word of HBM traffic per pixel per side.
 - The xy-shift variants (PixelMatchColorDepthSearchAlgorithm.java:113-144)
   become dynamic slices of a zero-padded target plane under a lax.scan
@@ -119,18 +119,18 @@ def _unpack(word):
 
 def _leq_geq_chain(u, v, q, r_hi, r_lo):
     """Shared staging for exact u/v <=|>= C9/1e9 with per-pixel constants
-    (see exact_ratio.py for the int32 range proof). Returns (leq, geq)."""
+    (see exact_ratio.py for the int32 range proof). Returns (leq, geq).
+    Boolean algebra only, so it lowers inside Pallas kernels too."""
     d = u * 1000 - q * v
     e = d * 15625 - r_hi * v
     in_d = (d >= 0) & (d <= 65601)
     in_e = (e >= 0) & (e <= 65601)
     e_band = 64 * jnp.where(in_e, e, 0)
-    leq_final = e_band <= r_lo * v
-    geq_final = e_band >= r_lo * v
-    leq_e = jnp.where(e < 0, True, jnp.where(in_e, leq_final, False))
-    geq_e = jnp.where(e < 0, False, jnp.where(in_e, geq_final, True))
-    leq = jnp.where(d < 0, True, jnp.where(in_d, leq_e, False))
-    geq = jnp.where(d < 0, False, jnp.where(in_d, geq_e, True))
+    rv = r_lo * v
+    leq_e = (e < 0) | (in_e & (e_band <= rv))
+    geq_e = (e >= 0) & ((e_band >= rv) | ~in_e)
+    leq = (d < 0) | (in_d & leq_e)
+    geq = (d >= 0) & (geq_e | ~in_d)
     return leq, geq
 
 
@@ -142,19 +142,11 @@ def _select_by_lo(lo, values):
     return out
 
 
-def _match_words(qw, tw, zt9: int):
-    """Exact per-pixel match predicate on packed words (broadcastable).
-
-    For zt9 within the packed-constant range (every production config)
-    dispatches to the fused single-chain form in pixel_pallas (identical
-    results — pinned by test_fast_predicate_equals_general and the
-    engine crosscheck matrix); the general two-chain staging below is
-    the fallback for extreme zTolerance."""
-    from .pixel_pallas import (_PACK_ZT9_MAX, _match_unpacked_fast)
-    if zt9 <= _PACK_ZT9_MAX:
-        return _match_unpacked_fast(_unpack(qw), _unpack(tw), zt9)
-    b1, a1, s1, qsel, qcl, qcu = _unpack(qw)
-    b2, a2, s2, tsel, tcl, tcu = _unpack(tw)
+def _match_general(q, t, zt9: int):
+    """Exact per-pixel match predicate on unpacked (b, a, s, sel, cl, cu)
+    tuples, general two-chain staging (any zt9)."""
+    b1, a1, s1, qsel, qcl, qcu = q
+    b2, a2, s2, tsel, tcl, tcu = t
 
     p = b1 * b2
     # same sector: |a2*b1 - a1*b2| / p <= zTol, both ratios > 0
@@ -170,7 +162,7 @@ def _match_words(qw, tw, zt9: int):
     down = s1 == s2 + 1   # target is the lower sector
     adj = (up | down) & (jnp.minimum(s1, s2) > 0)
     lo = jnp.where(up, s1, s2)
-    cond = jnp.where(up, qcu & tcl, qcl & tcu).astype(bool)
+    cond = (up & ((qcu & tcl) > 0)) | (down & ((qcl & tcu) > 0))
 
     leq_splits = [c9_split(2 * k + zt9) for k in PAIR_K9]
     geq_splits = [c9_split(max(2 * k - zt9, 0)) for k in PAIR_K9]
@@ -183,10 +175,87 @@ def _match_words(qw, tw, zt9: int):
                      _select_by_lo(lo, [l[2] for l in leq_splits]))
     u = a1 * b2 + a2 * b1
     leq, geq = _leq_geq_chain(u, p, q_c, rh_c, rl_c)
-    gap_ok = jnp.where(is_even, geq, leq)
-    adj_ok = adj & cond & gap_ok
+    gap_ok = (is_even & geq) | (~is_even & leq)
+    return ((qsel & tsel) > 0) & (same_ok | (adj & cond & gap_ok))
 
-    return (qsel & tsel).astype(bool) & (same_ok | adj_ok)
+
+# --- packed-constant fast predicate -----------------------------------
+# The staged-quotient triple (Q, Rhi, Rlo) of every comparison constant
+# fits one int32 as (Q<<20)|(Rhi<<6)|Rlo when Q <= 2047 (Rhi < 15625
+# needs 14 bits, Rlo < 64 needs 6). Q = c9 // 1e6 and the largest c9 is
+# 2*max(PAIR_K9) + zt9 = 1_992_156_862 + zt9, so the packing is valid
+# for zt9 <= 54_000_000 (pixColorFluctuation <= 5.4 — every production
+# config; 1.0/2.0 are the reference CLI values). Larger zt9 falls back
+# to the general predicate. Packing lets ONE 4-select chain deliver all
+# three constants (instead of three chains), and the same/adjacent cases
+# share ONE staged comparison by selecting (input, constant) pairs.
+_PACK_ZT9_MAX = 54_000_000
+
+
+def _pack_c9(c9: int) -> int:
+    q, rh, rl = c9_split(c9)
+    assert q <= 2047, c9
+    return (q << 20) | (rh << 6) | rl
+
+
+def _match_fast(q, t, zt9: int):
+    """Exact-match predicate, packed-constant form (zt9 <= _PACK_ZT9_MAX).
+
+    Identical results to _match_general (pinned by the predicate and
+    engine crosscheck tests) with ~35 fewer integer ops per (pixel,
+    variant):
+    - same-sector and adjacent-pair comparisons share one staged
+      rational chain by selecting the (numerator, constant) inputs;
+    - the per-lo constants arrive via one packed-int32 select chain.
+    """
+    b1, a1, s1, qsel, qcl, qcu = q
+    b2, a2, s2, tsel, tcl, tcu = t
+    p = b1 * b2
+    x = a1 * b2
+    y = a2 * b1
+    same = s1 == s2
+    up = s2 == s1 + 1
+    down = s1 == s2 + 1
+    adj = (up | down) & (jnp.minimum(s1, s2) > 0)
+    lo = jnp.where(up, s1, s2)
+
+    # merged per-lo constants: even lo compares >= (2k - zt9), odd lo
+    # compares <= (2k + zt9)  [see _match_general]
+    packed = [
+        _pack_c9(max(2 * k - zt9, 0)) if (i % 2 == 0)
+        else _pack_c9(2 * k + zt9)
+        for i, k in enumerate(PAIR_K9, start=1)
+    ]
+    cpk = _select_by_lo(lo, packed)
+    cpk = jnp.where(same, _pack_c9(zt9), cpk)
+    qc = cpk >> 20
+    rhc = (cpk >> 6) & 0x3FFF
+    rlc = cpk & 0x3F
+
+    # shared staged chain on selected numerator: |y-x| <= zt9*p (same)
+    # vs (x+y) <=/>= c*p (adjacent)
+    num = jnp.where(same, jnp.abs(y - x), x + y)
+    leq, geq = _leq_geq_chain(num, p, qc, rhc, rlc)
+
+    same_ok = same & (s1 > 0) & (a1 > 0) & (a2 > 0) & leq
+    cond = (up & ((qcu & tcl) > 0)) | (down & ((qcl & tcu) > 0))
+    is_even = (lo == 2) | (lo == 4)
+    gap_ok = (is_even & geq) | (~is_even & leq)
+    return ((qsel & tsel) > 0) & (same_ok | (adj & cond & gap_ok))
+
+
+def match_unpacked(q, t, zt9: int):
+    """Exact per-pixel match predicate on unpacked tuples: the
+    packed-constant form inside its zt9 range, the general form beyond
+    it (identical results either way)."""
+    if zt9 <= _PACK_ZT9_MAX:
+        return _match_fast(q, t, zt9)
+    return _match_general(q, t, zt9)
+
+
+def _match_words(qw, tw, zt9: int):
+    """Exact per-pixel match predicate on packed words (broadcastable)."""
+    return match_unpacked(_unpack(qw), _unpack(tw), zt9)
 
 
 @functools.partial(jax.jit, static_argnames=("zt9", "mirror"))

@@ -77,7 +77,7 @@ def add_cds_params(p: argparse.ArgumentParser) -> None:
                    help="disable excluded text-label regions")
     p.add_argument("--queryROIMaskName", default=None)
     p.add_argument("--maskBatchSize", type=int, default=4,
-                   help="queries scored per device step (TPU batching)")
+                   help="queries scored per device step (dense engine)")
 
 
 def excluded_regions_for(args, height: int, width: int):

@@ -1,10 +1,11 @@
 """colorDepthSearch command: the full mask x target pixel-match sweep.
 
 Counterpart of cmd/ColorDepthSearchCmd.java:54-467 +
-LocalColorMIPSearchProcessor.java:38-122, re-structured TPU-first: the
-reference iterates masks and fans targets over a thread pool; here
-target batches are packed once onto the device and stay HBM-resident
-while query blocks stream through the batched kernel (SURVEY.md 2d-P1).
+LocalColorMIPSearchProcessor.java:38-122, re-structured for an
+accelerator: the reference iterates masks and fans targets over a
+thread pool; here target batches are packed once onto the device and
+stay resident while every mask is scored against them (SURVEY.md
+2d-P1).
 """
 
 from __future__ import annotations
@@ -134,19 +135,31 @@ def add_parser(subparsers) -> None:
                         "the device here)")
     p.add_argument("--engine", choices=("auto", "dense", "pallas"),
                    default="auto",
-                   help="scoring engine: active-tile Pallas kernel on TPU, "
-                        "dense XLA elsewhere")
+                   help="scoring engine: 'pallas' = prescreen + active-tile "
+                        "Pallas kernel (CUDA GPUs), 'dense' = full-frame "
+                        "XLA; 'auto' picks pallas on a GPU, dense on a CPU")
     p.add_argument("--prescreen", choices=("on", "off"), default="on",
-                   help="MXU upper-bound screen before the exact kernel "
+                   help="upper-bound screen before the exact kernel "
                         "(pallas engine only; results identical)")
     p.set_defaults(func=run)
 
 
-def _pick_engine(kind: str) -> str:
-    if kind != "auto":
-        return kind
+def _pick_engine(kind: str, interpret: bool = False) -> str:
+    """Resolve --engine for the platform JAX runs on. The kernel engine
+    needs a CUDA GPU (or interpret mode, which tests request and which a
+    GPU refuses); nothing switches engines silently."""
     import jax
-    return "pallas" if jax.devices()[0].platform.startswith("tpu") else "dense"
+    platform = jax.devices()[0].platform
+    if interpret and platform == "gpu":
+        raise SystemExit("CMS_PALLAS_INTERPRET=1 is for CPU tests; the "
+                         "kernel compiles on this GPU")
+    if kind == "auto":
+        kind = "pallas" if platform == "gpu" else "dense"
+    elif kind == "pallas" and platform != "gpu" and not interpret:
+        raise SystemExit(f"--engine pallas needs a CUDA GPU; JAX runs on "
+                         f"{platform!r} (use --engine dense)")
+    LOG.info("scoring engine: %s on %s", kind, platform)
+    return kind
 
 
 def _filter_by_processing_tags(entities, include_specs, exclude_specs):
@@ -228,8 +241,8 @@ def _read_mips(args, files: List[str], index: int, length: int, side: str):
 
 
 def _load_target_images(targets, cache: MIPsCache, workers: int = 8):
-    """Decode a target partition with a thread pool (PIL releases the
-    GIL during decode). Counterpart of the reference's I/O-side
+    """Decode a target partition with a thread pool (zlib and the native
+    decode helpers release the GIL). Counterpart of the reference's I/O-side
     parallelism (LocalColorMIPSearchProcessor's executor, P1/P4).
 
     Returns (pixel arrays, entities, failed) where failed is a list of
@@ -340,13 +353,13 @@ def run(args: argparse.Namespace) -> int:
     all_matches: List[CDMatchEntity] = []
     target_parts = partition_collection(targets, args.processingPartitionSize)
     ratio_threshold = (args.pctPositivePixels or 0.0) / 100.0
-    engine_kind = _pick_engine(args.engine)
-    LOG.info("scoring engine: %s", engine_kind)
+    # hermetic CPU coverage of the kernel branch: tests ask for interpret
+    interpret = os.environ.get("CMS_PALLAS_INTERPRET") == "1"
+    engine_kind = _pick_engine(args.engine, interpret)
 
     # prepare query planes / engines once per mask, fanned over a host
-    # thread pool (decode + tile packing + ratio-plane tables are
-    # ~170 ms/mask of GIL-releasing numpy/PIL work; at production mask
-    # counts a serial loop costs minutes per process)
+    # thread pool (decode + tile decomposition is GIL-releasing NumPy
+    # work; at production mask counts a serial loop costs minutes)
     def prep_one(mask):
         mip = cache.load_mip(mask, ComputeFileType.InputColorDepthImage)
         if mip.image is None:
@@ -355,13 +368,11 @@ def run(args: argparse.Namespace) -> int:
         excluded = excluded_regions_for(args, mip.image.height,
                                         mip.image.width)
         if engine_kind == "pallas":
-            from ..cds.pixel_pallas import ActiveTilePixelEngine
+            from ..cds.active_tile import ActiveTilePixelEngine
             eng = ActiveTilePixelEngine(
                 mip.image, args.maskThreshold, args.mirrorMask,
                 args.dataThreshold, args.pixColorFluctuation, args.xyShift,
-                excluded,
-                # hermetic CI coverage of this branch on CPU
-                interpret=os.environ.get("CMS_PALLAS_INTERPRET") == "1")
+                excluded, interpret=interpret)
             return (mask, eng)
         return (mask, prepare_query_planes(
             mip.image, args.maskThreshold, excluded))
@@ -387,7 +398,7 @@ def run(args: argparse.Namespace) -> int:
                                    first_eng.tiles.height,
                                    first_eng.tiles.width)
             # one [B, F] feature matrix: bounds for ALL masks of a
-            # partition are a single MXU matmul; uploaded once per device
+            # partition are one matmul; uploaded once per device
             u_matrix = np.stack([screen.query_features(eng.planes.words)
                                  for _, eng in prepared])
             thresholds = np.array(

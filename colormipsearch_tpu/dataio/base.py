@@ -102,8 +102,7 @@ class FieldUpdate:
     """Field-update handler (dao/SetFieldValueHandler.java,
     AppendFieldValueHandler, RemoveElementFieldValueHandler,
     IncFieldValueHandler, SetOnCreateValueHandler — translated to Mongo
-    update operators at MongoDaoHelper.java:255-295; VERDICT r3
-    missing #4).
+    update operators at MongoDaoHelper.java:255-295).
 
     op: "set" | "append" | "remove" | "inc" | "set_on_create"
     append semantics: iterables fan out ($each); add_to_set picks

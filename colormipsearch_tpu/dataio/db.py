@@ -268,8 +268,7 @@ class SqliteStore:
             # a natural-key re-import keeps the ORIGINAL entity ids
             # (pppmURL records key on them; the reference's Mongo upsert
             # likewise never rewrites _id). One batched SELECT per call
-            # — not one per row — keeps the measured ~26K matches/s
-            # write path.
+            # — not one per row — keeps the write path batched.
             ems = sorted({m.source_em_name for m in matches
                           if m.source_em_name and m.source_lm_name})
             existing = {}
@@ -771,7 +770,7 @@ class DBNeuronMatchesReader(NeuronMatchesReader):
                              ) -> List[CDMatchEntity]:
         """Selectors and score filters are pushed DOWN to the store
         (server-side find operators on Mongo, indexed SQL columns on
-        SQLite — VERDICT r3 #5): a mask's full match set never crosses
+        SQLite): a mask's full match set never crosses
         the wire just to be filtered in Python."""
         masks = self.store.find_neurons(mask_selector)
         refs = [e.entity_id for e in masks if e.entity_id is not None]

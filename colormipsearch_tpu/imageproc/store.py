@@ -3,7 +3,7 @@
 SURVEY.md §7 flags host decode throughput as a hard part: production
 sweeps touch 100k+ TIFFs. This store converts decoded images to .npy
 files once (a one-time ingest), after which steady-state loads are
-memory-mapped at memcpy speed; the PIL decoder remains the ingest path
+memory-mapped at memcpy speed; imageproc.io remains the ingest path
 (the reference's ranged packbits read, ImageArrayUtils.java:184-258,
 plays the same role for its Java pipeline).
 """

@@ -1,6 +1,6 @@
 // mipops — native host-side image preprocessing for colormipsearch_tpu.
 //
-// The TPU owns the pair-sweep compute; this library owns the host data
+// The accelerator owns the pair-sweep compute; this library owns the host data
 // path that feeds it (the role the reference fills with hand-tuned Java
 // inner loops, e.g. imageprocessing/ImageTransformation.java:201-535 and
 // ImageArrayUtils.packBitsUncompress, ImageArrayUtils.java:229-258):
@@ -18,6 +18,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <vector>
 
@@ -265,6 +266,43 @@ void rgb_gray_signal(const uint8_t* rgb, uint8_t* out, int64_t n_px,
             gray = (int)(((r * third + g * third) + b * third) + 0.5);
         out[i] = gray > threshold ? 1 : 0;
     }
+}
+
+// ---------- PNG scanline unfiltering (PNG spec section 9) -----------------
+
+// in: h rows of (1 filter byte + stride bytes); out: h * stride bytes.
+// Returns 0, or -1 on an unknown filter type.
+int png_unfilter(const uint8_t* in, uint8_t* out, int64_t h, int64_t stride,
+                 int bpp) {
+    for (int64_t y = 0; y < h; y++) {
+        const uint8_t* src = in + y * (stride + 1);
+        uint8_t f = src[0];
+        src++;
+        uint8_t* cur = out + y * stride;
+        const uint8_t* prev = y ? out + (y - 1) * stride : nullptr;
+        for (int64_t x = 0; x < stride; x++) {
+            int a = x >= bpp ? cur[x - bpp] : 0;
+            int b = prev ? prev[x] : 0;
+            int c = (prev && x >= bpp) ? prev[x - bpp] : 0;
+            int pred;
+            switch (f) {
+                case 0: pred = 0; break;
+                case 1: pred = a; break;
+                case 2: pred = b; break;
+                case 3: pred = (a + b) >> 1; break;
+                case 4: {
+                    int p = a + b - c;
+                    int pa = std::abs(p - a), pb = std::abs(p - b),
+                        pc = std::abs(p - c);
+                    pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+                    break;
+                }
+                default: return -1;
+            }
+            cur[x] = (uint8_t)(src[x] + pred);
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

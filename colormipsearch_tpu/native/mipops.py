@@ -69,6 +69,9 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.packbits_decode_range.restype = ctypes.c_int64
         lib.rgb_gray_signal.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+        lib.png_unfilter.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int]
         lib.sparse_pack_block.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
@@ -122,6 +125,21 @@ def packbits_decode_range_native(data: bytes, out_len: int,
     out = np.zeros(out_len, dtype=np.uint8)
     lib.packbits_decode_range(buf.ctypes.data, len(buf), out.ctypes.data,
                               out_len, 0, start, end)
+    return out
+
+
+def png_unfilter_native(raw: bytes, h: int, stride: int, bpp: int
+                        ) -> Optional[np.ndarray]:
+    """Unfiltered PNG scanlines (uint8 [h, stride]); None if the native
+    lib is unavailable. Raises ValueError on an unknown filter type."""
+    lib = _load()
+    if lib is None:
+        return None
+    buf = np.frombuffer(raw, dtype=np.uint8)
+    out = np.empty((h, stride), dtype=np.uint8)
+    if lib.png_unfilter(buf.ctypes.data, out.ctypes.data, h, stride,
+                        bpp) != 0:
+        raise ValueError("PNG: unknown scanline filter")
     return out
 
 

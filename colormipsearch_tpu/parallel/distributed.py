@@ -1,12 +1,12 @@
 """Multi-host initialization and block assignment.
 
-TPU-native replacement for the reference's cross-process coordination
+Accelerator-native replacement for the reference's cross-process coordination
 (SURVEY.md §2d-P3/P5): instead of LSF job arrays indexing static
 (maskBlock, targetBlock) offsets through shell arithmetic
 (scripts/submitCDSBatch.sh:10-36), hosts join a jax.distributed
 coordination service and derive their static block of the pair grid
-from their process index — same restartable offset semantics, with ICI/
-DCN collectives replacing MongoDB-mediated reductions.
+from their process index — same restartable offset semantics, with XLA
+collectives replacing MongoDB-mediated reductions.
 """
 
 from __future__ import annotations
@@ -22,13 +22,13 @@ LOG = logging.getLogger(__name__)
 def initialize_distributed(coordinator_address: Optional[str] = None,
                            num_processes: Optional[int] = None,
                            process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize from args or standard TPU env vars.
+    """jax.distributed.initialize from args or CMS_COORDINATOR_ADDRESS.
     Safe no-op for single-process runs."""
     import jax
     coordinator_address = coordinator_address or os.environ.get(
         "CMS_COORDINATOR_ADDRESS")
     if coordinator_address is None and num_processes is None:
-        # single-process / auto TPU environment
+        # single process
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

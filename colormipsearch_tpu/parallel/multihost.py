@@ -4,10 +4,10 @@ The reference scales across machines with LSF job arrays + shared Mongo
 state (SURVEY.md 2d P3/P5: submitCDSBatch.sh:10-36 static grid blocks;
 no in-process communication layer). This framework keeps that
 restartable block model (distributed.block_for_process + the CLI's
---process-id/--process-count offsets) AND adds the TPU-native layer the
-reference never had: a single jitted computation spanning hosts via
-jax.distributed + a global device mesh, with XLA collectives riding
-ICI/DCN instead of Mongo round-trips.
+--process-id/--process-count offsets) AND adds the layer the reference
+never had: a single jitted computation spanning hosts via
+jax.distributed + a global device mesh, with XLA collectives instead of
+Mongo round-trips.
 
 Usage (one command per host/process, mirroring a job array):
 

@@ -1,13 +1,13 @@
-"""Multi-device production two-phase sweep (MXU prescreen + pallas).
+"""Multi-device production two-phase sweep (prescreen + active-tile kernel).
 
 The reference runs the SAME scoring algorithm locally and on the Spark
 cluster (cmd/cdsprocess/SparkColorMIPSearchProcessor.java:27-84 vs
 LocalColorMIPSearchProcessor.java:38-122). This module gives the
-production pallas engine the same property on TPU: targets are
+production engine the same property across local devices: targets are
 block-partitioned over the local devices, and each device independently
-runs the full two-phase pipeline on its shard — pack words, MXU bound
-pass, survivor-compacted active-tile kernel launches — placed per
-device via jax.default_device. The pair grid needs NO cross-device
+runs the full two-phase pipeline on its shard — pack words, prescreen
+bounds, one active-tile kernel launch over the survivor list — placed
+per device via jax.default_device. The pair grid needs NO cross-device
 collectives (every (mask, target) score is independent); per-mask
 reductions (normalization maxima, best-match selection) happen after
 the drain, on host for local runs or via process_allgather for
@@ -16,8 +16,8 @@ multi-host runs.
 Scaling layers compose exactly like the reference's:
   process grid (jax.distributed / CMS_PROCESS_*) x local device grid
   x per-device two-phase pipeline,
-so a v5p-16 runs 16 single-chip pipelines that share only the host-side
-partition loop and the result writer.
+so a host with four GPUs runs four single-device pipelines that share
+only the host-side partition loop and the result writer.
 """
 
 from __future__ import annotations
@@ -45,16 +45,16 @@ def device_blocks(n: int, n_devices: int) -> List[Tuple[int, int]]:
 class TwoPhaseSweep:
     """Two-phase exact sweep over every local device.
 
-    engines: one ActiveTilePixelEngine per mask (shared host-side state;
-      per-device query uploads are cached inside the engine).
-    screen/u_matrix/thresholds: optional MXU prescreen — u_matrix is the
+    engines: one ActiveTilePixelEngine per mask (shared CDS params);
+      their tiles form one table, uploaded once per device.
+    screen/u_matrix/thresholds: optional prescreen — u_matrix is the
       stacked [B, F] query feature matrix (numpy; uploaded once per
       device), thresholds the per-mask keep thresholds in pixels.
 
-    The per-device loop enqueues pack + screen + every mask's compacted
-    kernel launches for one shard before moving to the next device, so
-    all devices' exact phases run concurrently; only the [B, T_shard]
-    bounds pull synchronizes with a device mid-loop.
+    The per-device loop enqueues pack + screen + the kernel launch for
+    one shard before moving to the next device, so all devices' exact
+    phases run concurrently; only the [B, T_shard] bounds pull
+    synchronizes with a device mid-loop.
     """
 
     def __init__(self, engines: Sequence, screen=None,
@@ -62,28 +62,16 @@ class TwoPhaseSweep:
                  thresholds: Optional[np.ndarray] = None,
                  devices: Optional[Sequence] = None):
         import jax
-        import os
+        from ..cds.active_tile import TileScorer
         self.engines = list(engines)
         self.screen = screen
         self.u_matrix = u_matrix
         self.thresholds = thresholds
         self.devices = list(devices) if devices is not None \
             else jax.local_devices()
+        self.scorer = TileScorer(self.engines,
+                                 interpret=self.engines[0].interpret)
         self._u_dev = {}
-        # multi-mask single-launch exact phase (one pallas dispatch per
-        # ~64 survivor chunks across masks instead of one per mask);
-        # requires the prescreen's survivor lists and shared CDS params
-        self._mm = None
-        if (screen is not None and len(self.engines) > 1
-                and os.environ.get("CMS_MULTIMASK", "1") == "1"):
-            try:
-                from ..cds.multimask import MultiMaskScorer
-                self._mm = MultiMaskScorer(
-                    self.engines,
-                    interpret=getattr(self.engines[0], "interpret", False))
-            except AssertionError:
-                LOG.info("multi-mask launch disabled: engines do not "
-                         "share CDS params")
 
     def _u_for(self, device):
         import jax
@@ -98,12 +86,12 @@ class TwoPhaseSweep:
         local devices. Returns an opaque handle for collect(); nothing
         blocks except the per-device bounds pull, so a partition-
         pipelined caller overlaps the next batch's host pack with this
-        batch's device compute (same contract as the single-device
-        score_packed_deferred path)."""
+        batch's device compute."""
         import time
         tsz = targets_u8.shape[0]
         stage = stage if stage is not None else {}
-        launched = []  # (offset, length, [DeferredScore per mask])
+        launched = []  # (device sums or None, pairs [P, 2])
+        offsets = []
         n_screened = 0
         for dev, (off, ln) in zip(self.devices,
                                   device_blocks(tsz, len(self.devices))):
@@ -111,65 +99,36 @@ class TwoPhaseSweep:
                 continue
             shard = targets_u8[off:off + ln]
             t0 = time.perf_counter()
-            words = self.engines[0].pack_raw_words(shard, device=dev)
-            packed = self.engines[0].pad_from_words(words, device=dev)
-            survivors = None
-            row_ranges = None
+            eng = self.engines[0]
+            words = eng.pack_raw_words(shard, device=dev)
+            packed = eng.pad_from_words(words, device=dev)
             if self.screen is not None:
                 bounds = self.screen.bounds_from_words(
                     self._u_for(dev), words, device=dev)  # [B, ln]
-                survivors = (bounds > self.thresholds[:, None]).astype(
-                    np.int32)
-                n_screened += int((survivors == 0).sum())
-            tile_live = tier2 = None
-            if self._mm is not None:
-                from ..cds import multimask as mmx
-                row_ranges = mmx.signal_ranges_from_words(words)
-                tile_live = mmx.tile_live_from_words(words)
-                if mmx.tier2_enabled():
-                    tier2 = mmx.bin_bits_from_words(words)
+                survivors = bounds > self.thresholds[:, None]
+                n_screened += int((~survivors).sum())
+            else:
+                survivors = np.ones((len(self.engines), ln), bool)
             del words
             stage["pack+screen"] = stage.get("pack+screen", 0.0) \
                 + time.perf_counter() - t0
             t0 = time.perf_counter()
-            if self._mm is not None and survivors is not None:
-                defs = self._mm.launch_deferred(packed, survivors,
-                                                device=dev,
-                                                row_ranges=row_ranges,
-                                                tile_live=tile_live,
-                                                tier2=tier2)
-            else:
-                defs = [
-                    eng.score_packed_deferred(
-                        packed,
-                        survivors=None if survivors is None else survivors[i],
-                        device=dev)
-                    for i, eng in enumerate(self.engines)]
+            pairs = np.argwhere(survivors)  # mask-major (mask, target)
+            launched.append((self.scorer.launch(packed, pairs, device=dev),
+                             pairs))
+            offsets.append(off)
             stage["launch"] = stage.get("launch", 0.0) \
                 + time.perf_counter() - t0
-            launched.append((off, ln, defs))
         stage["screened"] = stage.get("screened", 0) + n_screened
-        return tsz, launched
+        return tsz, launched, offsets
 
     def collect(self, handle):
-        """Drain one launch()'s results (ALL devices, ALL masks) in one
-        batched device_get; returns (scores int64 [B, T], mirrored bool
-        [B, T]) in the original target order."""
-        from ..cds.pixel_pallas import drain_deferred
-        tsz, launched = handle
-        bsz = len(self.engines)
-        scores = np.zeros((bsz, tsz), dtype=np.int64)
-        mirrored = np.zeros((bsz, tsz), dtype=bool)
-        flat = [d for _, _, defs in launched for d in defs]
-        results = drain_deferred(flat)
-        k = 0
-        for off, ln, defs in launched:
-            for i in range(bsz):
-                s, _, m = results[k]
-                scores[i, off:off + ln] = s
-                mirrored[i, off:off + ln] = m
-                k += 1
-        return scores, mirrored
+        """Drain one launch()'s results (ALL devices) in one batched
+        device_get; returns (scores int64 [B, T], mirrored bool [B, T])
+        in the original target order."""
+        tsz, launched, offsets = handle
+        return self.scorer.collect(launched, len(self.engines), tsz,
+                                   offsets)
 
     def sweep(self, targets_u8: np.ndarray, stage=None):
         """launch + collect in one call (no partition pipelining)."""

@@ -1,6 +1,6 @@
 """Mesh-sharded mask x target pair sweeps.
 
-TPU-native replacement for the reference's three scale-out layers
+Accelerator-native replacement for the reference's three scale-out layers
 (SURVEY.md 2d): Reactor thread pools (P1), Spark RDD partitioning (P2),
 and LSF job-array static grid blocks (P3). The pair grid is
 block-partitioned over a ("mask", "target") mesh via shard_map; each

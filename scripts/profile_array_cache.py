@@ -1,18 +1,18 @@
 #!/usr/bin/env python
-"""--array-cache re-run cold-path measurement (VERDICT r4 #5).
+"""--array-cache re-run cold-path measurement.
 
 The gradient phase's cold cost is host decode per distinct target
-(ROADMAP: ~40-50 ms/target on this 2-core host). `--array-cache DIR`
+(not measured on the GPU host yet). `--array-cache DIR`
 hangs a PackedArrayStore off MIPsCache (cmd/gradientscores_cmd.py:150-
 154): the first run ingests every decoded compute file as .npy; RE-runs
-then load memory-mapped arrays instead of PIL-decoding TIFF/PNG — the
+then load memory-mapped arrays instead of decoding TIFF/PNG — the
 role CachedMIPsUtils.java:19-112 plays in the reference's steady state.
 
 This script measures, on one process with warm XLA compiles:
   1. cold, no cache        — the baseline decode-bound path
   2. cold, populating      — first --array-cache run (ingest writes)
-  3. cold, RE-RUN          — second --array-cache run (the number
-                             VERDICT asks for)
+  3. cold, RE-RUN          — second --array-cache run (the
+                             steady-state number)
 and verifies variant coverage: all three compute file types (CDM,
 gradient, zgap) of every distinct target appear in the store.
 

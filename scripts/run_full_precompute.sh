@@ -3,8 +3,8 @@
 #
 # Counterpart of the reference's cluster scripts (cdsparams.sh,
 # submitCDSBatch.sh, submitCDSJob.sh, submitGAJob.sh): the same
-# restartable static grid-block semantics, but blocks map to TPU
-# processes (one per host/chip group) instead of LSF array indices.
+# restartable static grid-block semantics, but blocks map to
+# accelerator processes (one per host) instead of LSF array indices.
 #
 # Usage:
 #   CMS_PROCESS_COUNT=<N> ./run_full_precompute.sh <workdir> [process_id]
@@ -52,7 +52,9 @@ done
 # sharded over CMS_GA_PROCS mask-mipId grid blocks exactly like the
 # reference's GA job arrays (submitGAJob.sh:50-60). Blocks are
 # deterministic and restartable; per-mask normalization is block-local
-# by construction (each mask's matches live in one block).
+# by construction (each mask's matches live in one block). The blocks
+# run one after another: a JAX process reserves most of a GPU's memory,
+# so a second process on the same card would fail.
 GA_PROCS=${CMS_GA_PROCS:-$PROCESS_COUNT}
 echo "=== gradientScores ($GA_PROCS blocks)"
 for ((gid = 0; gid < GA_PROCS; gid++)); do
@@ -61,9 +63,8 @@ for ((gid = 0; gid < GA_PROCS; gid++)); do
     --nBestLines "${CMS_TOP_LINES:-300}" \
     --array-cache "$WORKDIR/array-cache" \
     --process-id "$gid" --process-count "$GA_PROCS" \
-    --computeZGapOnTheFly &
+    --computeZGapOnTheFly
 done
-wait
 
 echo "=== normalizeGradientScores"
 python -m colormipsearch_tpu normalizeGradientScores --db "$DB"

@@ -145,7 +145,7 @@ def test_lm_export_inverted(workspace):
 
 
 def test_pallas_engine_cli_branch(workspace, tmp_path, monkeypatch):
-    """CLI pallas branch (prescreen + compaction + launch window) in
+    """CLI pallas branch (prescreen + survivor-list kernel launch) in
     interpret mode on CPU — same goldens as the dense path."""
     monkeypatch.setenv("CMS_PALLAS_INTERPRET", "1")
     ws = str(workspace)

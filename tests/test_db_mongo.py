@@ -302,7 +302,7 @@ def test_open_store_dispatch(tmp_path):
 
 
 def test_bulk_write_round_trips():
-    """VERDICT r2 weak #5: match upserts and score updates must go
+    """Match upserts and score updates must go
     through bulk_write (one round trip per batch), never per-document
     replace_one/update_one (AbstractNeuronMatchesMongoDao.java:117+)."""
     store = make_store()

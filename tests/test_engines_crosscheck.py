@@ -1,5 +1,6 @@
-"""Randomized triple equality: oracle == dense kernel == pallas kernel
-across parameter combinations the goldens don't cover."""
+"""Randomized triple equality: oracle == dense kernel == active-tile
+kernel (interpret mode) across parameter combinations the goldens don't
+cover."""
 
 import numpy as np
 import pytest
@@ -7,7 +8,7 @@ import pytest
 from colormipsearch_tpu.imageproc.io import image_from_array
 from colormipsearch_tpu.cds.oracle import PixelMatchOracle
 from colormipsearch_tpu.cds.pixel_kernel import PixelMatchEngine
-from colormipsearch_tpu.cds.pixel_pallas import ActiveTilePixelEngine
+from colormipsearch_tpu.cds.active_tile import ActiveTilePixelEngine
 
 CONFIGS = [
     # (mirror, data_thr, fluct, xyshift)

@@ -1,4 +1,4 @@
-"""Export golden-file comparison (VERDICT r2 #9): byte-compare an
+"""Export golden-file comparison: byte-compare an
 exported EM_CD_MATCHES pipeline (with JACS enrichment, URL
 relativization and image-store mapping) against a checked-in golden
 hand-derived from the reference's DTO rules, locking field names,

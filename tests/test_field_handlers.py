@@ -1,4 +1,4 @@
-"""Field-update handler variety (VERDICT r3 missing #4): Set / Append
+"""Field-update handler variety: Set / Append
 ($addToSet|$push) / Remove ($pull|$pullAll) / Inc / SetOnCreate on both
 store backends, matching the reference's handler-to-operator translation
 (dao/AppendFieldValueHandler.java et al., MongoDaoHelper.java:255-295).

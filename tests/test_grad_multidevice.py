@@ -1,4 +1,4 @@
-"""Multi-device gradient phase (VERDICT r4 #3): the production GA
+"""Multi-device gradient phase: the production GA
 engine — device plane build (cds/shape_device.py) + fused
 shape_score_stacked — spread over all local devices, with a 1-vs-N
 equality guarantee. Runs on the 8-virtual-CPU-device mesh

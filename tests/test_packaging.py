@@ -1,4 +1,4 @@
-"""Packaging/distribution layer (VERDICT r3 #6; reference counterpart
+"""Packaging/distribution layer (reference counterpart
 colormipsearch-dist/pom.xml:37-44 + Dockerfile:1-28): the repo installs
 as a wheel with a `colormipsearch-tpu` console script."""
 
@@ -43,7 +43,7 @@ def test_pip_install_smoke(tmp_path):
          "--no-deps", "--no-index", "--target", str(target), str(REPO)],
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
-    env = dict(os.environ, PYTHONPATH=str(target), CMS_PLATFORM="cpu")
+    env = dict(os.environ, PYTHONPATH=str(target), JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-c",
          "from colormipsearch_tpu.cmd.main import main\n"

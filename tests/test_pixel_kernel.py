@@ -65,3 +65,52 @@ def test_kernel_random_images_vs_oracle(fixtures_dir):
         expected = oracle.score(image_from_array(t[i]))
         assert scores[i] == expected.matching_pixels, i
         assert bool(mirrored[i]) == expected.mirrored, i
+
+
+def _predicate_words(rng, n):
+    """Packed words: the (a, b) edge lattice of every sector and flag
+    combination, random interiors, and the canonical empty word."""
+    edge_ab = [(0, 1), (1, 1), (0, 255), (1, 255), (254, 255), (255, 255),
+               (1, 2), (127, 255), (128, 255), (51, 100), (102, 200),
+               (11, 25), (27, 50), (7, 10), (4, 5), (255, 1)]
+    words = [b | (a << 8) | (s << 16) | (fl << 19)
+             for s in range(7) for fl in range(8) for a, b in edge_ab]
+    a = rng.integers(0, 256, n)
+    b = rng.integers(1, 256, n)
+    s = rng.integers(0, 7, n)
+    fl = rng.integers(0, 8, n)
+    words.extend((b | (a << 8) | (s << 16) | (fl << 19)).tolist())
+    words.append(1)
+    return np.array(words, dtype=np.int32)
+
+
+@pytest.mark.parametrize("zt9", [0, 7_654_321, 10_000_000, 20_000_000,
+                                 54_000_000])
+def test_fast_predicate_equals_general(zt9):
+    """The packed-constant predicate (dense engine and active-tile
+    kernel) decides every word pair like the general staged form, up to
+    the packing gate."""
+    from colormipsearch_tpu.cds.pixel_kernel import (_match_fast,
+                                                     _match_general, _unpack)
+    rng = np.random.default_rng(zt9 % 1009)
+    qw = _predicate_words(rng, 300)[:, None]
+    tw = _predicate_words(rng, 300)[None, :]
+    got = np.asarray(_match_fast(_unpack(qw), _unpack(tw), zt9))
+    want = np.asarray(_match_general(_unpack(qw), _unpack(tw), zt9))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_match_unpacked_gate():
+    """Beyond the packing range the dispatcher takes the general form
+    (whose constants would not fit the packed layout)."""
+    from colormipsearch_tpu.cds.pixel_kernel import (_PACK_ZT9_MAX,
+                                                     _match_general, _unpack,
+                                                     match_unpacked)
+    rng = np.random.default_rng(4)
+    qw = _predicate_words(rng, 100)[:, None]
+    tw = _predicate_words(rng, 100)[None, :]
+    zt9 = 100_000_000
+    assert zt9 > _PACK_ZT9_MAX
+    np.testing.assert_array_equal(
+        np.asarray(match_unpacked(_unpack(qw), _unpack(tw), zt9)),
+        np.asarray(_match_general(_unpack(qw), _unpack(tw), zt9)))

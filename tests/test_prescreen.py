@@ -1,4 +1,4 @@
-"""MXU prescreen validity: the bound must dominate the exact score."""
+"""Prescreen validity: the bound must dominate the exact score."""
 
 import numpy as np
 import pytest

@@ -1,9 +1,10 @@
-"""Survivor-bitmap path in the pallas kernel + screen equivalence."""
+"""Survivor-bitmap path in the active-tile kernel + screen equivalence."""
 
 import numpy as np
 
 from colormipsearch_tpu.imageproc import load_image, label_regions_mask
-from colormipsearch_tpu.cds.pixel_pallas import ActiveTilePixelEngine
+from colormipsearch_tpu.cds.active_tile import (ActiveTilePixelEngine,
+                                                pack_words)
 from colormipsearch_tpu.cds.pixel_kernel import z_tolerance_to_zt9
 from colormipsearch_tpu.cds.prescreen import PairPrescreen, query_features
 
@@ -69,7 +70,8 @@ def test_device_bounds_match_host_bounds(fixtures_dir):
 
 
 def test_survivor_compaction_equals_bitmap_path(fixtures_dir):
-    """The compacted-gather path must reproduce the full-block scores."""
+    """A survivor subset scores exactly the full-block scores of those
+    targets (the kernel scores only the listed pairs) and 0 elsewhere."""
     query = load_image(fixtures_dir / "ems" / "12191_JRC2018U.tif")
     excluded = label_regions_mask(query.height, query.width)
     engine = ActiveTilePixelEngine(query, 20, True, 20, 1.0, 2, excluded,
@@ -82,12 +84,11 @@ def test_survivor_compaction_equals_bitmap_path(fixtures_dir):
     targets = np.concatenate([base] + [np.roll(base, 97 * (i + 1), axis=2)
                                        for i in range(3)])
     packed = engine.pad_from_words(engine.pack_raw_words(targets))
-    survivors = np.array([1, 1, 0, 0, 0, 0, 0, 0], np.int32)
-    full, _, mf = engine.score_packed(packed, survivors=survivors)
-    engine.COMPACT_CHUNK = 2  # force the chunked compaction path
+    survivors = np.array([1, 1, 0, 0, 0, 1, 0, 0], np.int32)
+    full, _, mf = engine.score_packed(packed)
     compact, _, mc = engine.score_packed(packed, survivors=survivors)
-    np.testing.assert_array_equal(compact, full)
-    np.testing.assert_array_equal(mc, mf)
+    np.testing.assert_array_equal(compact, np.where(survivors, full, 0))
+    np.testing.assert_array_equal(mc, mf & (survivors > 0))
     assert full[0] == 439 and full[1] == 414
 
 
@@ -104,10 +105,8 @@ def test_sparse_feed_equals_dense_feed(fixtures_dir):
            "BJD_127B01_AE_01-20171124_64_H6-40x-Brain-JRC2018_Unisex_20x_HR-2483089192251293794-CH2-01_CDM.tif"]
     targets = np.stack([load_image(fixtures_dir / "lms" / n).pixels
                         for n in lms])
-    engine._sparse_feed = True
-    words_sparse = np.asarray(engine.pack_raw_words(targets))
-    engine._sparse_feed = False
-    words_dense = np.asarray(engine.pack_raw_words(targets))
+    words_sparse = np.asarray(pack_words(targets, 20, sparse=True))
+    words_dense = np.asarray(pack_words(targets, 20, sparse=False))
     sel = (words_dense >> 19) & 1
     np.testing.assert_array_equal(words_sparse[sel > 0], words_dense[sel > 0])
     assert (words_sparse[sel == 0] == 1).all()

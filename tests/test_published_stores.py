@@ -1,4 +1,4 @@
-"""Store-backed published-data DAOs (VERDICT r3 #3).
+"""Store-backed published-data DAOs.
 
 The reference reads publishedLMImages / publishedURLs from Mongo
 (dao/PublishedURLsDao.java, dao/PublishedLMImageDao.java, wired at
@@ -109,7 +109,7 @@ def test_mongo_published_roundtrip():
 @pytest.mark.parametrize("backend", ["sqlite", "mongo"])
 def test_export_reads_published_data_from_store(tmp_path, backend):
     """test_export_golden variant with DB-sourced published data
-    (VERDICT r3 #3 'done' criterion) on both backends."""
+    on both backends."""
     from colormipsearch_tpu.cmd import backends
     if backend == "sqlite":
         db = str(tmp_path / "store.db")

@@ -1,4 +1,4 @@
-"""Server-side selector pushdown (VERDICT r3 #5).
+"""Server-side selector pushdown.
 
 The reference joins neurons server-side and filters matches in the DB
 via NeuronSelectionHelper aggregation

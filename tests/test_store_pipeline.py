@@ -1,4 +1,4 @@
-"""Store-only end-to-end pipeline (VERDICT r2 #4): import -> store ->
+"""Store-only end-to-end pipeline: import -> store ->
 search (store-backed MIP reads) -> gradientScores -> normalize ->
 export, with NO JSON intermediary. The reference's production flow is
 DB-centric end to end (CreateCDSDataInputCmd.java:237-260 via
